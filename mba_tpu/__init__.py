@@ -1,6 +1,6 @@
-"""mba_tpu — TPU-native multimodal biosignal analysis framework.
+"""mba_tpu — accelerator-native multimodal biosignal analysis framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 paulruesing/multimodal-biosignal-analysis: real-time multimodal acquisition,
 OTB4 import, multimodal time alignment, preprocessing, multitaper PSD /
 cortico-muscular-coherence (CMC) feature extraction, surrogate + permutation
@@ -12,7 +12,7 @@ Layering (bottom → top), mirroring the reference's layer map (SURVEY.md §1):
 - ``mba_tpu.ops``        — jitted array kernels (filtering, DPSS multitaper,
                            fused CSD/coherence, wavelets, surrogates,
                            permutation statistics).  The reference's
-                           scipy/numpy hot loops live here as XLA/Pallas code.
+                           scipy/numpy hot loops live here as XLA code.
 - ``mba_tpu.parallel``   — ``jax.sharding.Mesh`` utilities; cohort / surrogate
                            sharding over device meshes.
 - ``mba_tpu.models``     — statistical models: closed-form OLS with Kish

@@ -1,9 +1,10 @@
 """Framework-level JAX runtime configuration.
 
-Enables the persistent XLA compilation cache (compiles on the single-core CI
-host take tens of seconds; the cache makes repeat pipeline runs and test
-sessions start hot).  Importing this module is idempotent and safe before or
-after other jax use.  Set ``MBA_TPU_NO_COMPILE_CACHE=1`` to opt out.
+Enables the persistent XLA compilation cache so repeat runs and test
+sessions start hot.  Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX keeps
+the cache there and this module sets no other directory; otherwise the
+cache is the fixed ``<checkout>/.jax_cache`` (a fixed path, because the
+path is part of the cache key).  Importing this module is idempotent.
 """
 from __future__ import annotations
 
@@ -11,19 +12,15 @@ import os
 
 import jax
 
+CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
 
-def enable_compilation_cache(cache_dir: str | None = None) -> None:
-    if os.environ.get("MBA_TPU_NO_COMPILE_CACHE"):
-        return
-    cache_dir = cache_dir or os.environ.get(
-        "MBA_TPU_COMPILE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "mba_tpu_xla"))
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # pragma: no cover — older jax without these flags
-        pass
+
+def enable_compilation_cache() -> None:
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", CHECKOUT_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 
 
 enable_compilation_cache()

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import glob
 import math
+import os
 import time
 from pathlib import Path
 
@@ -162,7 +163,11 @@ def _tiered_saver(save_dir: Path, rows: list, final: bool = False,
     previous = sorted(save_dir.glob("*Redundant Save*.csv"))
     new_path = save_dir / filemgmt.file_title(
         "Serial Measurements Redundant Save", ".csv")
-    df.to_csv(new_path)
+    # write then rename: a kill mid-write must not leave a truncated
+    # file under the name the loaders look for
+    tmp_path = new_path.with_suffix(".csv.partial")
+    df.to_csv(tmp_path)
+    os.replace(tmp_path, new_path)
     for old in previous:
         if old != new_path:          # same-second roll keeps the file
             old.unlink(missing_ok=True)

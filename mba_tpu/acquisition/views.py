@@ -18,7 +18,7 @@ Every view here runs in two modes:
   buttons pressed through the returned handles), so the views are fully
   exercisable headless (Agg backend) and in CI.  This replaces the
   reference's display-bound code paths, which cannot run in this repo's
-  TPU build environment.
+  JAX build environment.
 """
 from __future__ import annotations
 

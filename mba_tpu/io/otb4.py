@@ -113,7 +113,7 @@ def read_otb4(otb4_path: str | Path, verbose: bool = False,
     the tar member bytes — no float materialization, half the host RAM,
     and the counts can ride the device link verbatim
     (``utils.transfer.upload_counts``) with the mV conversion fused into
-    an on-device multiply.  This is the TPU-first import path: the
+    an on-device multiply.  This is the device-first import path: the
     reference (otb_file_handling.py:361-409) always materializes floats
     on the host because its consumers are host numpy.
     """

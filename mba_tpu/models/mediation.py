@@ -1,4 +1,4 @@
-"""Baron–Kenny mediation with clustered bootstrap (batched on TPU).
+"""Baron–Kenny mediation with clustered bootstrap (batched on the device).
 
 Parity target: reference ``src/statistics_RQ_A_mediation_analysis_workflow
 .py`` — a/b/c/c′ MixedLM paths per (contrast, mediator, outcome)
@@ -7,7 +7,7 @@ bootstrap of the indirect effect a·b with percentile CI + bootstrap p
 (:437-540), per-DV BH-FDR (:315-366), omnibus join (:369-434), and the
 report-ready table (:543-645).
 
-TPU redesign: the reference refits two statsmodels MixedLMs per bootstrap
+Device redesign: the reference refits two statsmodels MixedLMs per bootstrap
 resample sequentially (``n_bootstrap = 300  # todo: drives runtime!``).
 Here every resample is a row-weighted padded design and ALL resamples are
 one `` _batched_reml_weighted`` call — the a-path and c′-path fleets each

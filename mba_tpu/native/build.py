@@ -102,7 +102,7 @@ def quantize_int8_per_channel(x) -> "np.ndarray":
     """int8 variant: quarter the upload bytes of float32, rounding
     error <= 2^-7 of each channel's peak.  For null engines the induced
     statistic perturbation is below Monte-Carlo noise at practical
-    surrogate counts (tested); prefer int16 when the link affords it.
+    surrogate counts (tested); prefer int16 when the transfer affords it.
     """
     return _quantize_per_channel(x, 8)
 

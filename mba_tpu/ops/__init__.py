@@ -1,4 +1,4 @@
-"""Jitted TPU compute kernels (the reference's scipy/numpy hot loops).
+"""Jitted device compute kernels (the reference's scipy/numpy hot loops).
 
 Everything in this package is shape-static, functional JAX intended to run
 under ``jax.jit`` / ``vmap`` / ``pjit``.  Host-side precomputation (taper

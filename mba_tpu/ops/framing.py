@@ -2,7 +2,7 @@
 
 The reference extracts sliding windows with Python-level fancy indexing
 (signal_features.py:398,412) and iterates windows in a hot Python loop
-(signal_features.py:725).  On TPU, windows become a leading batch axis
+(signal_features.py:725).  On the device, windows become a leading batch axis
 materialised by a single gather, so the per-window kernel can be ``vmap``-ed
 or scanned with static shapes (SURVEY.md §5 "long-context" note).
 """

@@ -1,14 +1,9 @@
-"""MXU gram-matmul rotation-null coefficient pass.
+"""Gram-matmul rotation-null coefficient pass.
 
-The rotation-null coefficient precompute is the north star's dominant
-device cost.  Round 3 shipped a fused Pallas kernel (ops/
-pallas_coeffs.py) that beat the naive XLA lowering 1.78×, but the
-roofline row showed it latency-bound at <1 % of both chip roofs
-(BENCH_ROOFLINE.json): its grid processes one window per step and the
-P/2 pair products run on the VPU.
-
-This module reaches the MXU by *factorizing before the outer product*.
-The normalized taper product
+The rotation-null coefficient precompute is the study-scale null's main
+device cost outside the surrogate contraction.  This module turns it into
+matrix products by *factorizing before the outer product*.  The
+normalized taper product
 
     y_k,w(f,e,m) = conj(E_k,w(f,e)) · M_k,w(f,m) · sqrt(wt_w / (pe·pm))
 
@@ -20,31 +15,28 @@ denominator ``pe_w(f,e) · pm_w(f,m)`` is itself separable:
     B_kl,w = M_k conj(M_l) · sqrt(wt)/pm      (M-side, complex)
 
 so every window-summed pair product C_kl(f, e, m) = Σ_w A·B is a TRUE
-matmul: batch (pair, f), output (E × M) = 64×64 MXU tiles, contraction
-over windows (~1 320 at study scale; stacked ×2 for the Re/Im parts).
-The taper-diagonal term contracts over (taper, window) the same way.
-The old lowering's OOM hazard — materializing (wc, P/2, F, E·M) pair
-products — disappears: the operands are (wc, P/2, F, E) and
-(wc, P/2, F, M), 64× smaller, and the MXU performs the E×M outer
-product inside the contraction.
+matmul: batch (pair, f), output (E × M) = 64×64 tiles, contraction over
+windows (~1 320 at study scale; stacked ×2 for the Re/Im parts).  The
+taper-diagonal term contracts over (taper, window) the same way.  The
+operands are (wc, P/2, F, E) and (wc, P/2, F, M) — never the
+(wc, P/2, F, E·M) pair products — and the E×M outer product happens
+inside the contraction.
 
 Band-limited taper-folded DFT.  Only ``band_hi − band_lo`` (~175) of
-the 2 049 rfft bins are consumed, so the spectra stage can also ride
-the MXU: one matmul per modality against a constant
-``(S, 2·K·F_band)`` matrix with the DPSS tapers folded in —
-no (wc, K, C, S) tapered-frame materialization, frames are read once.
-Twiddle angles are computed with an exact integer ``(s·f) mod S``
-reduction (s·f ≤ 4096·2048 < 2³¹), so the factor table carries no
-large-angle cos/sin error.  ``spectra='fft'`` keeps ``jnp.fft.rfft``
-for an on-hardware A/B and as the bit-conservative option.
+the 2 049 rfft bins are consumed, so the spectra stage is also a matmul:
+one per modality against a constant ``(S, 2·K·F_band)`` matrix with the
+DPSS tapers folded in — no (wc, K, C, S) tapered-frame materialization,
+frames are read once.  Twiddle angles are computed with an exact integer
+``(s·f) mod S`` reduction (s·f ≤ 4096·2048 < 2³¹), so the factor table
+carries no large-angle cos/sin error.  ``spectra='fft'`` keeps
+``jnp.fft.rfft`` as the bit-conservative option.
 
-Matmul precision: TPU f32 einsums default to one bf16 pass (~2e-3
-relative) — too coarse for the observed coherence map.  Both stages
-default to ``Precision.HIGH`` (bf16x3, ~1.5e-5 per product, error far
-below the f32 FFT path's own round-off at these reductions);
-``Precision.HIGHEST`` is a knob for bit-paranoid runs at 2× the matmul
-cost.  CPU ignores precision (exact f32), which is what the parity
-tests pin against the loop engine.
+Matmul precision: both stages run at ``Precision.HIGH``, which XLA runs
+as TF32 on the H100 (the same results as the default precision there;
+the study-scale observed map agreed with ``multitaper_msc`` to 1.6e-5 in
+``chip_smoke.py``, inside its 1e-4 bar).  On the CPU precision is ignored
+(exact f32), which is what the parity tests pin against the loop
+engine.
 
 Parity: ``tests/test_gram_coeffs.py`` asserts coefficient-level
 agreement with ``cohort_null._rotation_coeffs_body`` (both spectra
@@ -81,7 +73,7 @@ def band_dft_tapered(tapers, window_samples: int, band_lo: int,
 
     ``out[s, (part, k, f)] = taper[k, s] · {cos, sin}(−2π·s·(band_lo+f)/S)``
     — multiplying a frame (…, S) by this matrix yields the Re/Im parts
-    of its K tapered band spectra in one MXU contraction.  The angle is
+    of its K tapered band spectra in one matmul contraction.  The angle is
     reduced with exact int32 arithmetic (s·f < 2³¹ at any power-of-2
     window this framework uses) before the trig, so there is no
     large-argument cos error.
@@ -104,7 +96,7 @@ def gram_coeffs_subject(eeg, emg, starts, weights, tapers,
                         gram_chunk: int = GRAM_CHUNK,
                         spectra: str = "dft",
                         dft_precision=None, gram_precision=None):
-    """Per-subject rotation-null coefficients via MXU gram matmuls.
+    """Per-subject rotation-null coefficients via gram matmuls.
 
     Same contract as ``cohort_null._rotation_coeffs_body`` (shared
     rotation mode): returns ``(base (F, E, M), coef (F, E, M, P))`` with
@@ -142,9 +134,8 @@ def gram_coeffs_subject(eeg, emg, starts, weights, tapers,
         """(n, C) signal + (gc,) starts → Re/Im (gc, K, F, C) f32."""
         fr = frame_signal(sig, cs, window_samples).astype(jnp.float32)
         if spectra == "fft":
-            from mba_tpu.ops.fftmm import rfft_prod
-            Xf = rfft_prod(fr[:, None] * tapers[None, :, :, None],
-                           axis=2)[:, :, band_lo:band_hi]
+            Xf = jnp.fft.rfft(fr[:, None] * tapers[None, :, :, None],
+                              axis=2)[:, :, band_lo:band_hi]
             return Xf.real, Xf.imag                      # (gc, K, F, C)
         C = sig.shape[1]
         Xq = jnp.einsum("wsc,sq->wcq", fr, D,

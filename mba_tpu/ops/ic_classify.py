@@ -7,8 +7,7 @@ implements a transparent per-class feature classifier over the same label
 vocabulary, with per-artifact-class behavior validated by injection tests
 (tests/test_ic_classify.py: plant a synthetic ECG / blink / EMG /
 channel-pop / line-hum component, assert it — and only it — is flagged;
-specificity and selectivity are asserted per class over many seeds,
-VERDICT.md round-1 item 4).
+specificity and selectivity are asserted per class over many seeds).
 
 Per-class evidence:
 

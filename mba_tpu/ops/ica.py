@@ -1,4 +1,4 @@
-"""Extended-Infomax ICA as a jitted TPU kernel + heuristic IC labeling.
+"""Extended-Infomax ICA as a jitted device kernel + heuristic IC labeling.
 
 The reference delegates ICA to MNE (preprocessing.py:654-682: extended
 infomax, 25 components, seed 42) and component labeling to the pretrained
@@ -9,7 +9,7 @@ implemented natively:
   learning (Lee, Girolami & Sejnowski 1999) with kurtosis-based sub/super-
   Gaussian switching, learning-rate annealing and weight-change convergence.
   The epoch loop is a ``lax.while_loop`` over a ``lax.scan`` of mini-batch
-  natural-gradient steps — one compiled program, MXU matmuls throughout.
+  natural-gradient steps — one compiled program, matmuls throughout.
 - :func:`label_components` — a transparent rule-based classifier emitting
   the same label vocabulary the reference excludes on
   ('eye blink', 'heart beat', 'muscle artifact', 'channel noise', 'brain',
@@ -38,11 +38,10 @@ def _extended_infomax(key, x_white, n_comp, block, max_iter,
     n_blocks = n_samples // block
     eye = jnp.eye(n_comp, dtype=jnp.float32)
 
-    # Batch layout, TPU-first.  MNE permutes SAMPLES each epoch; on TPU
-    # that is a 3.5M-key sort plus a row gather of the whole (n, C)
-    # array at 100 B granularity — measured ~90-360 ms per epoch at
-    # study scale, 3-10× the cost of the actual natural-gradient scan
-    # (~33 ms; tools/profile_ica.py).  Instead the blocks are built
+    # Batch layout.  MNE permutes SAMPLES each epoch; on a device that
+    # is a 3.5M-key sort plus a row gather of the whole (n, C) array at
+    # 100 B granularity per epoch, several times the cost of the actual
+    # natural-gradient scan.  Instead the blocks are built
     # ONCE as a decimated comb — block b = samples {i·n_blocks + b},
     # each block spanning the whole recording with its samples
     # ~n_blocks (≈1.6 s) apart — which decorrelates better than an iid
@@ -123,7 +122,7 @@ def _extended_infomax(key, x_white, n_comp, block, max_iter,
 def _mean_cov(x):
     """Channel mean + covariance on device (x: (T, C) f32).
 
-    One MXU matmul replaces the host's O(T·C²) pass — at the
+    One matmul replaces the host's O(T·C²) pass — at the
     preprocessing hot-spot scale (64 ch × ≥20 min @ 2048 Hz,
     reference preprocessing.py:654-682) the host pass alone costs
     seconds on a 1-core machine.

@@ -1,4 +1,4 @@
-"""Multitaper / Welch spectral estimation as jitted TPU kernels.
+"""Multitaper / Welch spectral estimation as jitted device kernels.
 
 Numerical parity targets (float32 tolerance):
 
@@ -27,7 +27,6 @@ import jax
 import jax.numpy as jnp
 
 from mba_tpu.ops.dpss import dpss_windows
-from mba_tpu.ops.fftmm import rfft_prod
 from mba_tpu.ops.framing import frame_signal, window_grid
 
 
@@ -67,7 +66,7 @@ def _mt_psd_kernel(frames, tapers, onesided, inv_fs_n, apply_log_scale):
     # scipy.signal.periodogram detrends (constant) by default and the
     # reference does not override it (signal_features.py:419) — match that.
     tapered = tapered - tapered.mean(axis=2, keepdims=True)
-    fft = rfft_prod(tapered, axis=2)
+    fft = jnp.fft.rfft(tapered, axis=2)
     pxx = (fft.real ** 2 + fft.imag ** 2) * inv_fs_n
     pxx = pxx * onesided[None, None, :, None]
     pxx = pxx.mean(axis=1)  # average over tapers → (chunk, F, C)
@@ -138,7 +137,7 @@ def _welch_kernel(x, win, nperseg, noverlap, inv_fs_wsq, onesided):
     idx = starts[:, None] + jnp.arange(nperseg, dtype=jnp.int32)[None, :]
     segs = x[idx]                                   # (n_seg, nperseg, C)
     segs = segs - segs.mean(axis=1, keepdims=True)  # detrend='constant'
-    fft = rfft_prod(segs * win[None, :, None], axis=1)
+    fft = jnp.fft.rfft(segs * win[None, :, None], axis=1)
     pxx = (fft.real ** 2 + fft.imag ** 2) * inv_fs_wsq
     pxx = pxx * onesided[None, :, None]
     return pxx.mean(axis=0)                          # (F, C)

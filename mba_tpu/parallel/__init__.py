@@ -9,7 +9,7 @@ permutations.  Here, scale comes from ``jax.sharding`` over a device mesh:
 - surrogate axis          → embarrassingly parallel null realisations
 
 Collectives (``psum`` for cohort reductions, all-gathers inserted by XLA
-from sharding constraints) ride ICI.
+from sharding constraints) run between the devices.
 """
 from mba_tpu.parallel.mesh import make_mesh, cohort_sharding  # noqa: F401
 from mba_tpu.parallel.cohort import (  # noqa: F401

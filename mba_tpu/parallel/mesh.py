@@ -12,8 +12,10 @@ def make_mesh(n_devices: int | None = None,
 
     Default layout is 2-D ``('subjects', 'windows')``: subjects (cohort
     members / independent recordings) on the outer axis, sliding windows
-    (sequence-parallel) on the inner axis so window-axis collectives stay on
-    neighbouring devices.
+    (sequence-parallel) on the inner axis.  Every device reaches every
+    other at the same rate, so the factorisation follows the algorithm
+    alone: the windows axis takes 2 or 4 devices, whichever is larger and
+    leaves at least two subject shards.
     """
     devices = jax.devices()
     if n_devices is not None:

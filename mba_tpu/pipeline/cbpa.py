@@ -162,7 +162,7 @@ def _load_subject_data(cfg: CBPAConfig, subject_ind: int):
             subject_feat_dir, modality=cfg.modality,
             file_identifier=file_id, expected_n_channels=expected_ch)
     except (ValueError, FileNotFoundError):
-        # lean feature store: a band-aggregate artifact (the TPU-first
+        # lean feature store: a band-aggregate artifact (the device-first
         # alternative to the full grid, signal_features.BandAggregates)
         # carries exactly the per-(window, channel) band values
         # _extract_band_power would reduce the grid to

@@ -4,7 +4,7 @@ Parity target: reference ``src/pipeline/preprocessing.py`` —
 ``BiosignalPreprocessor``'s memoized property hierarchy (:104-113), its
 cache-invalidation truth table (:1001-1110), config round-trip (:184-239),
 the validation suite (:1113-1269) and ``import_npy_with_config``
-(:1309-1357).  MNE is replaced by native TPU kernels:
+(:1309-1357).  MNE is replaced by native device kernels:
 
 raw → filtered (ops.filters FIR band-pass + harmonic notch, auto bands
 EEG (0.1, 100) / EMG (20, 500) Hz) → referenced (average re-ref, EEG only)
@@ -37,7 +37,7 @@ from mba_tpu.ops.wavelet import wavelet_denoise
 from mba_tpu.ops.ica import InfomaxICA, label_components
 from mba_tpu.ops import surrogate as surrogation
 from mba_tpu.ops.coherence import multitaper_msc
-from mba_tpu.pipeline import signal_features as features
+from mba_tpu.ops.spectral import spectral_snr
 from mba_tpu.utils import file_management as filemgmt
 
 # invalidation hierarchy: each stage clears itself + everything after it
@@ -58,9 +58,8 @@ _STAGE_ATTRS = {
 
 def _sliding_extreme(x, window: int, fill, cum):
     """Sliding-window extreme via the block prefix/suffix trick: two
-    O(n) cumulative scans instead of an O(n·w) reduce_window (whose
-    stride-1 TPU lowering measured ~10⁴× slower at 28-min × 64-ch
-    scale) or an (n, w, C) gather (90 GB there)."""
+    O(n) cumulative scans instead of an O(n·w) reduce_window or an
+    (n, w, C) gather (90 GB at 28-min × 64-ch scale)."""
     n, c = x.shape
     pad = (-n) % window
     xp = jnp.pad(x, ((0, pad), (0, 0)), constant_values=fill)
@@ -110,8 +109,7 @@ class BiosignalPreprocessor:
         # diagnostics excepted).  The default (False) stores each stage
         # as a numpy array, mirroring the reference's MNE RawArray
         # staging — but at study scale (28 min × 64 ch) each stage
-        # round-trips ~0.9 GB over the host link, which dominated the
-        # five-stage pipeline benchmark wall clock (BENCH_PIPELINE).
+        # then round-trips ~0.9 GB between host and device.
         self._device_resident = bool(device_resident)
         if isinstance(np_input_data, jax.Array):
             self._np_input_data = np_input_data
@@ -552,7 +550,7 @@ class BiosignalPreprocessor:
 
         The reference's per-channel Python loop becomes
         ``x − x @ Wᵀ`` with W the row-normalised neighbor matrix — an
-        MXU-friendly (T, C) × (C, C) product.
+        matmul-friendly (T, C) × (C, C) product.
         """
         if self._spatially_filtered_data is not None:
             return self._spatially_filtered_data
@@ -640,10 +638,10 @@ class BiosignalPreprocessor:
                            freq_window: float = 8.5,
                            verbose: bool = True):
         """SNR + PSD change in the target band due to filtering."""
-        input_snr = features.compute_spectral_snr(
+        input_snr = spectral_snr(
             self.np_input_data, self.sampling_freq,
             target_freq=target_freq, freq_window=freq_window)
-        filtered_snr = features.compute_spectral_snr(
+        filtered_snr = spectral_snr(
             self.np_filtered_data, self.sampling_freq,
             target_freq=target_freq, freq_window=freq_window)
         snr_improvement = filtered_snr - input_snr
@@ -667,10 +665,10 @@ class BiosignalPreprocessor:
     def validate_referencing(self, target_freq: float = 21.5,
                              freq_window: float = 8.5,
                              verbose: bool = True) -> float:
-        input_snr = features.compute_spectral_snr(
+        input_snr = spectral_snr(
             self.np_filtered_data, self.sampling_freq,
             target_freq=target_freq, freq_window=freq_window)
-        ref_snr = features.compute_spectral_snr(
+        ref_snr = spectral_snr(
             self.np_referenced_data, self.sampling_freq,
             target_freq=target_freq, freq_window=freq_window)
         improvement = ref_snr - input_snr
@@ -712,7 +710,7 @@ class BiosignalPreprocessor:
         """Neighbor-coherence change due to the Laplacian (ref :1214-1248).
 
         The reference's per-pair scipy loops ('~2-5 s per electrode')
-        become two batched multitaper-MSC calls on the TPU.
+        become two batched multitaper-MSC calls on the device.
         """
         neighbors = self.get_neighboring_electrodes_mapping()
         results = []
@@ -736,10 +734,10 @@ class BiosignalPreprocessor:
     def validate_wavelet_denoising(self, target_freq: float = 21.5,
                                    freq_window: float = 8.5,
                                    verbose: bool = True) -> float:
-        input_snr = features.compute_spectral_snr(
+        input_snr = spectral_snr(
             self.np_spatially_filtered_data, self.sampling_freq,
             target_freq=target_freq, freq_window=freq_window)
-        out_snr = features.compute_spectral_snr(
+        out_snr = spectral_snr(
             self.np_denoised_data, self.sampling_freq,
             target_freq=target_freq, freq_window=freq_window)
         improvement = out_snr - input_snr

@@ -2,7 +2,7 @@
 
 Parity target: reference ``src/pipeline/signal_features.py`` — every public
 symbol is preserved with the same semantics; the dense numerics are the
-TPU kernels from :mod:`mba_tpu.ops`:
+device kernels from :mod:`mba_tpu.ops`:
 
 - ``FREQUENCY_BANDS``                         ↔ :17-26
 - :func:`resample_data`                       ↔ :40-56
@@ -98,7 +98,7 @@ def jackknife_coherence_and_ci(tapers_filtered: np.ndarray,
     signal_features.py:484-578): mean in coherence space, variance in
     Fisher-z space, Student-t CI clamped to contain the mean.
 
-    Same signature and outputs as the reference, computed by the TPU
+    Same signature and outputs as the reference, computed by the device
     kernel's algebraic O(K) formulation instead of the reference's
     O(K^2) per-taper re-accumulation.
     """
@@ -155,7 +155,7 @@ def multitaper_psd(input_array, sampling_freq: float, nw: float = 3,
                    psd_save_dir: str | Path | None = None,
                    psd_file_suffix: str = "", device_output: bool = False,
                    **_ignored):
-    """DPSS multitaper sliding-window PSD (TPU kernel, reference :80-454).
+    """DPSS multitaper sliding-window PSD (device kernel, reference :80-454).
 
     ``device_output=True`` keeps the spectrogram on the accelerator (the
     save path, if requested, still downloads it once)."""
@@ -173,7 +173,7 @@ def multitaper_psd(input_array, sampling_freq: float, nw: float = 3,
 
 def multitaper_magnitude_squared_coherence(eeg_array, emg_array,
                                            sampling_freq, **kwargs) -> dict:
-    """Full EEG×EMG multitaper MSC (TPU kernel, reference :619-839)."""
+    """Full EEG×EMG multitaper MSC (device kernel, reference :619-839)."""
     return multitaper_msc(eeg_array, emg_array, sampling_freq, **kwargs)
 
 
@@ -277,16 +277,16 @@ def compute_task_wise_aggregated_cmc(
 
     One global sliding-window grid; windows outside buffered task periods
     are skipped (zeros).  The EMG-channel max with CI-aligned indices is
-    fused into the TPU kernel unless the independence-threshold masking is
+    fused into the device kernel unless the independence-threshold masking is
     requested (which the reference applies to the un-aggregated tensor).
 
     ``transfer_dtype`` forwards to :func:`multitaper_msc` — ``np.int16``
     downloads the coherence/CI tensors as per-lane quantized integers
-    (≤ ~8e-6 abs error on [0, 1] values) at half the link bytes.
+    (≤ ~8e-6 abs error on [0, 1] values) at half the downloaded bytes.
     ``freq_range=(lo, hi)`` forwards likewise: the coherence grid is
     sliced to the band ON DEVICE before download (values inside the
     range bit-identical; freqs vector sliced to match) — cap at 250 Hz
-    (the top edge of ``AGGREGATE_BANDS``) to cut the link bytes ~4× at
+    (the top edge of ``AGGREGATE_BANDS``) to cut the downloaded bytes ~4× at
     fs=2048 without changing any downstream band consumer.
     """
     if eeg_channel_subset:
@@ -601,12 +601,12 @@ def aggregate_psd_spectrogram(psd_spectrograms: np.ndarray,
 
 
 # --------------------------------------------------------------------------
-# band-aggregate artifacts (TPU-first lean feature store)
+# band-aggregate artifacts (device-first lean feature store)
 # --------------------------------------------------------------------------
 class BandAggregates:
     """Per-band {mean, max}-over-frequency reduction of a spectrogram.
 
-    The TPU-first answer to the reference's full-grid artifact chain
+    The device-first answer to the reference's full-grid artifact chain
     (reference signal_features.py:1033-1100 saves the complete
     ``(windows, freqs, channels)`` spectrogram; every downstream
     consumer — the statistics-frame builder's hypothesis aggregates
@@ -620,7 +620,7 @@ class BandAggregates:
     bins as :func:`aggregate_psd_spectrogram` (``AGGREGATE_BANDS``), and
     the stored per-(window, channel) band mean/max commutes with the
     channel-axis reductions applied downstream.  The full grid stays
-    recomputable on demand (seconds of TPU vs tens of seconds of link).
+    recomputable on demand on the device.
     """
 
     STAT_INDEX = {'mean': 0, 'max': 1}
@@ -698,7 +698,7 @@ def band_aggregate_spectrogram(spectrogram, freqs,
     with the same inclusive ``(freqs >= low) & (freqs <= high)`` rule as
     :func:`aggregate_psd_spectrogram` so downstream band consumers get
     bit-compatible values.  Accepts a device (jax) array — the reduction
-    then runs on-chip and only the tiny aggregate crosses the link — or
+    then runs on the device and only the tiny aggregate is downloaded — or
     a host numpy array (NaN-aware, matching the aggregator's
     nanmean/nanmax).  Bands whose range exceeds the available frequency
     axis are dropped (a 'fast' 60-250 Hz band cannot be represented at
@@ -720,12 +720,10 @@ def band_aggregate_spectrogram(spectrogram, freqs,
 
     is_device = not isinstance(spectrogram, np.ndarray)
     if is_device:
-        # one fused jit over STATIC contiguous band spans — the old
-        # eager per-band gather dispatched ~5 separate XLA programs per
-        # band (~28 s of first-call compile at study shapes, measured
-        # by tools/profile_psd.py, vs 0.15 s steady); bands are
-        # contiguous on a monotone frequency axis, so static
-        # slice_in_dim bounds compile as a single cheap program
+        # one fused jit over STATIC contiguous band spans instead of
+        # ~5 separate XLA programs per band; bands are contiguous on a
+        # monotone frequency axis, so static slice_in_dim bounds compile
+        # as a single cheap program
         spans = tuple((int(np.flatnonzero(sel)[0]),
                        int(np.flatnonzero(sel)[-1]) + 1)
                       for sel in masks)

@@ -4,7 +4,7 @@ category→CMC effects?
 Parity target: reference
 ``src/statistics_RQ_A_mediation_analysis_workflow.py`` (858 LoC) — the
 model/bootstrap/FDR/join/table machinery lives in
-:mod:`mba_tpu.models.mediation` (batched bootstrap on TPU); this workflow
+:mod:`mba_tpu.models.mediation` (batched bootstrap on the device); this workflow
 wires the study configuration (:651-856).
 """
 from __future__ import annotations

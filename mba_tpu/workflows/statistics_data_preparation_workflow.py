@@ -181,7 +181,7 @@ def build_subject_frame(subject_ind: int, experiment_data_dir: Path,
     frame = pd.DataFrame(index=range(len(seg_starts)))
 
     # ── PSD hypotheses (reference :252-294) ───────────────────────────
-    # A band-aggregate artifact (the TPU-first lean feature store,
+    # A band-aggregate artifact (the device-first lean feature store,
     # features.BandAggregates) is preferred when present: its stored
     # per-(window, channel) band means are exactly the values the
     # full-grid aggregation below computes, because the band mean over

@@ -633,3 +633,70 @@ class TestFftCohortNull:
             cohort_msc_fft_null(eeg[None], emg[None], FS,
                                 band=(200.0, 300.0),
                                 window_length_sec=0.25)
+
+
+def _null_toy(J=3, nF=4, N=512, K=3, seed=0):
+    rng = np.random.default_rng(seed)
+    P = K * (K - 1)
+    coef = (rng.standard_normal((J, nF, N, P)) * 0.05).astype(np.float32)
+    base = rng.uniform(0.1, 0.3, (nF, N)).astype(np.float32)
+    obs = base + rng.uniform(-0.05, 0.2, (nF, N)).astype(np.float32)
+    return coef, base, obs
+
+
+class TestNullCoreVsFloat64:
+    """The XLA surrogate contraction against ``base + G·coef/J`` in
+    float64 numpy from the same key (chip_smoke.reference_null_chunk)."""
+
+    @staticmethod
+    def _reference():
+        import sys
+        from pathlib import Path
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+        import chip_smoke
+        return chip_smoke.reference_null_chunk
+
+    def _check(self, J, nF, N, K, S, seed):
+        import jax
+        from mba_tpu.ops.cohort_null import _null_chunk_core
+        coef, base, obs = _null_toy(J, nF, N, K, seed)
+        key = jax.random.PRNGKey(seed + 7)
+        ms, counts = _null_chunk_core(
+            key, jnp.asarray(coef), jnp.asarray(base), jnp.asarray(obs),
+            jnp.zeros((nF, N), jnp.int32), S, K, jnp.float32)
+        ms_ref, counts_ref = self._reference()(key, coef, base, obs, S, K)
+        assert ms.shape == (S,)
+        np.testing.assert_allclose(np.asarray(ms), ms_ref, rtol=1e-5)
+        np.testing.assert_array_equal(np.asarray(counts), counts_ref)
+
+    def test_matches_xla_core(self):
+        self._check(J=3, nF=4, N=512, K=3, S=20, seed=0)
+
+    def test_unaligned_surrogate_count(self):
+        self._check(J=2, nF=3, N=256, K=3, S=13, seed=1)
+
+    def test_sharded_xla_matches_float64(self):
+        # the per-device core inside shard_map over all 8 virtual CPU
+        # devices: device d draws its surrogates from keys[d]
+        import jax
+        from jax.sharding import Mesh, NamedSharding, PartitionSpec as Pspec
+        from mba_tpu.ops.cohort_null import _make_sharded_chunk
+        J, nF, N, K, S = 3, 4, 512, 3, 8
+        coef, base, obs = _null_toy(J, nF, N, K, seed=6)
+        n_dev = len(jax.devices())
+        mesh = Mesh(np.array(jax.devices()), ("surr",))
+        rep = NamedSharding(mesh, Pspec())
+        keys = jax.random.split(jax.random.PRNGKey(11), n_dev)
+        step, _, _ = _make_sharded_chunk(mesh, S, K, jnp.float32)
+        ms, counts = step(
+            jax.device_put(keys, NamedSharding(mesh, Pspec("surr"))),
+            jax.device_put(jnp.asarray(coef), rep),
+            jax.device_put(jnp.asarray(base), rep),
+            jax.device_put(jnp.asarray(obs), rep),
+            jax.device_put(jnp.zeros((nF, N), jnp.int32), rep))
+        ref = [self._reference()(k, coef, base, obs, S, K) for k in keys]
+        np.testing.assert_allclose(np.asarray(ms),
+                                   np.concatenate([r[0] for r in ref]),
+                                   rtol=1e-5)
+        np.testing.assert_array_equal(np.asarray(counts),
+                                      sum(r[1] for r in ref))

@@ -1,4 +1,4 @@
-"""Parity of the MXU gram coefficient engine vs the scan baseline.
+"""Parity of the gram coefficient engine vs the scan baseline.
 
 The gram engine (ops/gram_coeffs.py) re-derives the rotation-null
 coefficients as window-contraction matmuls after factorizing the
@@ -196,3 +196,56 @@ def test_cohort_msc_null_auto_dispatch():
                             compute_dtype=jnp.float32, **kw)
     assert "compute_dtype" in res_f["metadata"].get(
         "dropped_rotation_kwargs", [])
+
+
+def _coupled_problem(seed, n_sec=8.0, E=3, M=4):
+    rng = np.random.default_rng(seed)
+    n = int(n_sec * FS)
+    t = np.arange(n) / FS
+    eeg = rng.standard_normal((n, E)).astype(np.float32)
+    emg = rng.standard_normal((n, M)).astype(np.float32)
+    shared = np.sin(2 * np.pi * 21.0 * t
+                    + 0.1 * rng.standard_normal(n).cumsum())
+    eeg[:, 0] += shared
+    emg[:, 1] += shared
+    return eeg, emg
+
+
+@pytest.mark.parametrize("case", ["full_band_uniform_weights",
+                                  "band_slice_odd_nF",
+                                  "nonuniform_weights_and_padding",
+                                  "int16_transfer_dtype_inputs",
+                                  "observed_statistic"])
+def test_gram_vs_xla_engine_cases(case):
+    """The gram engine against the chunked-scan (``xla``) engine, its
+    reference, over full and odd band slices, masked/padded windows,
+    integer inputs and the observed statistic at φ = 0."""
+    seed = ["full_band_uniform_weights", "band_slice_odd_nF",
+            "nonuniform_weights_and_padding", "int16_transfer_dtype_inputs",
+            "observed_statistic"].index(case)
+    eeg, emg = _coupled_problem(seed)
+    if case == "int16_transfer_dtype_inputs":
+        eeg, emg = (eeg * 1000).astype(np.int16), (emg * 1000).astype(np.int16)
+    ws, W = 256, 10
+    tapers = jnp.asarray(filtered_tapers(ws, 3, 0.9), jnp.float32)
+    lo, hi = (5, 100) if case == "band_slice_odd_nF" else (1, ws // 2)
+    starts = jnp.asarray(np.linspace(0, eeg.shape[0] - ws, W).astype(np.int32))
+    w = (np.array([1, 0, 2, 0.5, 1, 1, 0, 3, 1, 0.25], np.float32)
+         if case == "nonuniform_weights_and_padding"
+         else np.ones(W, np.float32))
+    args = (jnp.asarray(eeg), jnp.asarray(emg), starts, jnp.asarray(w),
+            tapers, ws, lo, hi)
+    b0, c0 = (np.asarray(a) for a in _rotation_coeffs_body(
+        *args, window_chunk=4))
+    b1, c1 = (np.asarray(a) for a in gram_coeffs_subject(*args,
+                                                         gram_chunk=4))
+    assert b1.shape == (hi - lo, 3, 4) and c1.shape == c0.shape
+    sc = float(np.abs(c0).max())
+    np.testing.assert_allclose(b1, b0, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(c1, c0, rtol=2e-3, atol=2e-4 * sc)
+    if case == "observed_statistic":
+        P = c0.shape[-1]
+        obs0 = b0 + c0[..., :P // 2].sum(axis=-1)
+        obs1 = b1 + c1[..., :P // 2].sum(axis=-1)
+        np.testing.assert_allclose(obs1, obs0, rtol=2e-4, atol=2e-5)
+        assert np.all(obs0 > -1e-5) and np.all(obs0 < 1 + 1e-5)

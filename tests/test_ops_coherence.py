@@ -99,6 +99,20 @@ class TestMultitaperMsc:
         np.testing.assert_allclose(res["coherence_ci_upper"], g_hi,
                                    rtol=1e-3, atol=2e-3)
 
+    def test_study_window_length_matches_golden_model(self):
+        """2-s windows at 2048 Hz (n = 4096), the study's CMC setting."""
+        eeg, emg = _coupled_signals(fs=2048, seconds=4, n_eeg=2, n_emg=2)
+        res = multitaper_msc(eeg, emg, 2048, window_length_sec=2.0,
+                             use_jackknife=True,
+                             apply_independence_threshold=False)
+        g_coh, g_lo, g_hi = _golden_msc(eeg, emg, 2048,
+                                        window_length_sec=2.0)
+        np.testing.assert_allclose(res["coherence_raw"], g_coh, atol=1e-5)
+        np.testing.assert_allclose(res["coherence_ci_lower"], g_lo,
+                                   atol=5e-4)
+        np.testing.assert_allclose(res["coherence_ci_upper"], g_hi,
+                                   atol=5e-4)
+
     def test_detects_coupling_frequency(self):
         eeg, emg = _coupled_signals(seconds=10)
         res = multitaper_msc(eeg, emg, 256, window_length_sec=2.0,
@@ -178,97 +192,91 @@ class TestMultitaperMsc:
             cmc_independence_threshold(res["metadata"]["K_tapers"], 0.2))
 
 
-class TestPallasEpilogue:
-    """The fused Pallas MSC epilogue must match the XLA kernel exactly
-    (run in interpreter mode — the CPU backend has no Mosaic)."""
+def _spectra_case(ws, nw, n_eeg, n_emg, n_win, seed):
+    """Coupled frames + tapers for the epilogue parity cases."""
+    from scipy.stats import t as t_dist
+    from mba_tpu.ops.dpss import filtered_tapers
+    rng = np.random.default_rng(seed)
+    shared = rng.standard_normal((n_win, ws, 1))
+    eegf = (0.3 * shared + rng.standard_normal((n_win, ws, n_eeg))
+            ).astype(np.float32)
+    emgf = (0.3 * shared + rng.standard_normal((n_win, ws, n_emg))
+            ).astype(np.float32)
+    tapers = np.asarray(filtered_tapers(ws, nw, 0.9), np.float32)
+    K = tapers.shape[0]
+    return eegf, emgf, tapers, np.float32(t_dist.ppf(0.975, K - 1)), K
 
-    def test_matches_xla_kernel(self):
+
+class TestJackknifeEpilogue:
+    """The jackknife epilogue (``_msc_chunk_kernel``) against the float64
+    numpy jackknife of chip_smoke.py, over taper counts, bin counts that
+    are not a power of two and 1/3/64-channel montages."""
+
+    @staticmethod
+    def _both(ws, nw, n_eeg, n_emg, emg_max, n_win=2, seed=0):
+        import sys
+        from pathlib import Path
         import jax.numpy as jnp
-        from scipy.stats import t as t_dist
         from mba_tpu.ops import coherence as C
-        from mba_tpu.ops.dpss import filtered_tapers
-        from mba_tpu.ops.pallas_msc import msc_chunk_pallas
-
-        fs, ws = 256.0, 256
-        rng = np.random.default_rng(0)
-        shared = rng.standard_normal(ws * 3)
-        eegf = np.stack([(0.5 * shared[i * ws // 2:
-                                       i * ws // 2 + ws, None]
-                          + rng.standard_normal((ws, 8))
-                          ).astype(np.float32) for i in range(2)])
-        emgf = np.stack([(0.5 * shared[i * ws // 2:
-                                       i * ws // 2 + ws, None]
-                          + rng.standard_normal((ws, 4))
-                          ).astype(np.float32) for i in range(2)])
-        tapers = np.asarray(filtered_tapers(ws, 3, 0.9), np.float32)
-        K = tapers.shape[0]
-        t_crit = np.float32(t_dist.ppf(0.975, K - 1))
-        inv = np.float32(1.0 / (fs * ws))
-
-        ref = C._msc_chunk_kernel(
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+        import chip_smoke
+        eegf, emgf, tapers, t_crit, K = _spectra_case(
+            ws, nw, n_eeg, n_emg, n_win, seed)
+        out = C._msc_chunk_kernel(
             jnp.asarray(eegf), jnp.asarray(emgf), jnp.asarray(tapers),
-            inv, t_crit, use_jackknife=True, aggregate_emg_max=True)
-        out = msc_chunk_pallas(jnp.asarray(eegf), jnp.asarray(emgf),
-                               jnp.asarray(tapers), t_crit,
-                               interpret=True)
-        for key in ("coherence", "ci_lower", "ci_upper"):
-            np.testing.assert_allclose(np.asarray(out[key]),
-                                       np.asarray(ref[key]),
-                                       atol=5e-5, err_msg=key)
+            np.float32(1.0 / (256.0 * ws)), t_crit, use_jackknife=True,
+            aggregate_emg_max=emg_max)
+        refs = [chip_smoke.reference_msc_window(
+            eegf[w], emgf[w], tapers.astype(np.float64), float(t_crit))
+            for w in range(n_win)]
+        if emg_max:
+            refs = [chip_smoke.reference_emg_max(*r) for r in refs]
+        ref = {k: np.stack([r[i] for r in refs])
+               for i, k in enumerate(("coherence", "ci_lower", "ci_upper",
+                                      "margin")[:len(refs[0])])}
+        out = {k: np.asarray(v) for k, v in out.items()}
+        if emg_max:
+            # CIs of EMG near-ties (top two coherences within f32
+            # round-off) may come from either channel: not compared
+            tie = ref.pop("margin") <= chip_smoke.TIE_MARGIN
+            for key in ("ci_lower", "ci_upper"):
+                out[key] = np.where(tie, ref[key], out[key])
+        return out, ref, K
+
+    @pytest.mark.parametrize("nw,k_expected", [(1.5, 2), (2, 3), (3, 5)])
+    @pytest.mark.parametrize("n_ch", [1, 3, 64])
+    def test_matches_xla_kernel(self, nw, k_expected, n_ch):
+        # ws=66 → F=34 bins
+        out, ref, K = self._both(66, nw, n_ch, n_ch, emg_max=True,
+                                 n_win=1 if n_ch == 64 else 2)
+        assert K == k_expected
+        assert out["coherence"].shape == ref["coherence"].shape
+        np.testing.assert_allclose(out["coherence"], ref["coherence"],
+                                   atol=1e-4)
+        if K > 2:   # one-taper replicates have undefined (nan) CIs
+            # the real-valued DC bin saturates near coherence 1, where the
+            # f32 Fisher-z CI is ill-conditioned: compare from bin 1 on
+            for key in ("ci_lower", "ci_upper"):
+                np.testing.assert_allclose(out[key][:, 1:], ref[key][:, 1:],
+                                           atol=2e-3, err_msg=key)
 
     def test_nonaligned_freq_padding(self):
-        # F = 65 (ws=128) is not a FREQ_BLOCK multiple: the padded tail
-        # must be sliced off and real bins unaffected
-        import jax.numpy as jnp
-        from scipy.stats import t as t_dist
-        from mba_tpu.ops import coherence as C
-        from mba_tpu.ops.dpss import filtered_tapers
-        from mba_tpu.ops.pallas_msc import msc_chunk_pallas, FREQ_BLOCK
+        # F = 65 (ws=128): odd bin count, 5 EEG × 3 EMG channels
+        out, ref, _ = self._both(128, 2, 5, 3, emg_max=True, n_win=1,
+                                 seed=1)
+        assert out["coherence"].shape == (1, 65, 5)
+        np.testing.assert_allclose(out["coherence"], ref["coherence"],
+                                   atol=1e-4)
 
-        ws = 128
-        assert (ws // 2 + 1) % FREQ_BLOCK != 0
-        rng = np.random.default_rng(1)
-        eegf = rng.standard_normal((1, ws, 4)).astype(np.float32)
-        emgf = rng.standard_normal((1, ws, 3)).astype(np.float32)
-        tapers = np.asarray(filtered_tapers(ws, 2, 0.9), np.float32)
-        t_crit = np.float32(t_dist.ppf(0.975, tapers.shape[0] - 1))
-        inv = np.float32(1.0 / (256.0 * ws))
-        ref = C._msc_chunk_kernel(
-            jnp.asarray(eegf), jnp.asarray(emgf), jnp.asarray(tapers),
-            inv, t_crit, use_jackknife=True, aggregate_emg_max=True)
-        out = msc_chunk_pallas(jnp.asarray(eegf), jnp.asarray(emgf),
-                               jnp.asarray(tapers), t_crit,
-                               interpret=True)
-        assert out["coherence"].shape == (1, ws // 2 + 1, 4)
-        np.testing.assert_allclose(np.asarray(out["coherence"]),
-                                   np.asarray(ref["coherence"]),
-                                   atol=5e-5)
-
-    def test_full_grid_mode_matches_xla(self):
-        import jax.numpy as jnp
-        from scipy.stats import t as t_dist
-        from mba_tpu.ops import coherence as C
-        from mba_tpu.ops.dpss import filtered_tapers
-        from mba_tpu.ops.pallas_msc import msc_chunk_pallas
-
-        ws = 256
-        rng = np.random.default_rng(2)
-        eegf = rng.standard_normal((2, ws, 6)).astype(np.float32)
-        emgf = rng.standard_normal((2, ws, 3)).astype(np.float32)
-        tapers = np.asarray(filtered_tapers(ws, 3, 0.9), np.float32)
-        t_crit = np.float32(t_dist.ppf(0.975, tapers.shape[0] - 1))
-        inv = np.float32(1.0 / (256.0 * ws))
-        ref = C._msc_chunk_kernel(
-            jnp.asarray(eegf), jnp.asarray(emgf), jnp.asarray(tapers),
-            inv, t_crit, use_jackknife=True, aggregate_emg_max=False)
-        out = msc_chunk_pallas(jnp.asarray(eegf), jnp.asarray(emgf),
-                               jnp.asarray(tapers), t_crit,
-                               interpret=True, emg_max=False)
-        assert out["coherence"].shape == (2, ws // 2 + 1, 6, 3)
-        for key in ("coherence", "ci_lower", "ci_upper"):
-            np.testing.assert_allclose(np.asarray(out[key]),
-                                       np.asarray(ref[key]),
-                                       atol=5e-5, err_msg=key)
+    @pytest.mark.parametrize("nw", [2, 3])
+    def test_full_grid_mode_matches_xla(self, nw):
+        out, ref, _ = self._both(64, nw, 6, 3, emg_max=False, seed=2)
+        assert out["coherence"].shape == (2, 33, 6, 3)
+        np.testing.assert_allclose(out["coherence"], ref["coherence"],
+                                   atol=1e-5)
+        for key in ("ci_lower", "ci_upper"):
+            np.testing.assert_allclose(out[key], ref[key], atol=2e-3,
+                                       err_msg=key)
 
     def test_transfer_dtype_halves_payload_precision_ok(self):
         import jax.numpy as jnp

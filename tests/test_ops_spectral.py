@@ -105,6 +105,17 @@ class TestMultitaperPsd:
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-9)
 
 
+    def test_study_window_length_matches_reference(self):
+        """1-s windows at 2048 Hz (n = 2048), the study's PSD setting."""
+        x = _synthetic(fs=2048, seconds=4, n_ch=2)
+        ours = multitaper_psd(x, 2048, nw=3, window_length_sec=1.0,
+                              overlap_frac=0.5, axis=0,
+                              apply_log_scale=False)[0]
+        ref = _reference_mt_psd(x, 2048, 3, 1.0, 0.5, False)[0]
+        np.testing.assert_allclose(ours, ref, rtol=2e-4,
+                                   atol=1e-5 * np.abs(ref).max())
+
+
 class TestWelch:
     def test_matches_scipy(self):
         x = _synthetic()

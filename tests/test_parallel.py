@@ -226,7 +226,7 @@ class TestTimeSharded:
                                    ref["time_centers"])
 
     def test_shards_hold_fraction_of_signal(self):
-        """Each device's block is ~1/8 of the recording (the HBM story)."""
+        """Each device's block is ~1/8 of the recording (the memory story)."""
         mesh = make_mesh(8)
         rng = np.random.default_rng(3)
         n = int(FS * 16)

@@ -210,8 +210,8 @@ class TestPinnedOracle:
         assert icc == pytest.approx(PINNED["icc"], abs=tol["icc"])
         assert fit["llf"] == pytest.approx(PINNED["llf"], abs=tol["llf"])
 
-    def test_batched_tpu_path_matches_host(self):
-        """The golden-section TPU solver agrees with the Brent host solver
+    def test_batched_device_path_matches_host(self):
+        """The golden-section device solver agrees with the Brent host solver
         (and hence with the pinned oracle) on the same frozen data."""
         X, y, groups = _fixture()
         host = fit_random_intercept_reml(X, y, groups)

@@ -1,5 +1,4 @@
-"""Operating characteristic of the taper-rotation cohort null
-(VERDICT r2 #5).
+"""Operating characteristic of the taper-rotation cohort null.
 
 ``ops/cohort_null.py`` documents that sharing one rotation across
 windows conditions on the observed window-to-window phase consistency:
@@ -17,7 +16,7 @@ count and compares rejection rates (α = 0.05, FWE max statistic) of
     fresh signal-level phases, ALL windows enter the inference exactly;
     feasible only at small scale because it redoes every FFT per draw).
 
-Round-4 additions (VERDICT r3 #5/#10):
+Later additions:
 
   - a TWO-OFFSET disjoint arm (``power_rotation_2off``): Bonferroni
     over the even- and odd-parity disjoint subsets,
@@ -32,8 +31,7 @@ Round-4 additions (VERDICT r3 #5/#10):
     whether r3's W=128 rates of 0.10-0.117 at 60 replicates (2.4σ)
     were noise or a defect.
 
-Round-5 additions (VERDICT r4 #1 — measure the production rotation
-engine where it actually runs):
+Measuring the production rotation engine where it actually runs:
 
   - large-W cells W ∈ {512, 1320} (single-pair, J=6; 1320 = the study's
     per-subject task-window count), at reduced replicate/surrogate
@@ -178,7 +176,7 @@ def _auto_choice(W, n):
 
 
 def run_h0(R, jnp, window_counts=(8, 32, 128)):
-    """H0-only cells at R replicates per engine (VERDICT r3 #5).
+    """H0-only cells at R replicates per engine.
 
     Large-W cells are excluded by default: at R=500 the full-FFT arm
     alone would cost ~35 h at W=1320; their H0 calibration is covered

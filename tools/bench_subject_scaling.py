@@ -1,4 +1,4 @@
-"""Measured per-subject scaling of the heavy pipeline stages (VERDICT r4 #5).
+"""Measured per-subject scaling of the heavy pipeline stages.
 
 The five-stage pipeline benchmark (``tools/bench_pipeline.py``) runs
 stages 1-3 on ONE heavy subject at the study's true recording length and
@@ -6,7 +6,7 @@ extrapolates the reference's per-subject loop linearly in subject count
 (the reference repeats stages 1-3 per subject —
 reference ``src/subject_feature_extraction_workflow.py:37``).  That
 linearity has never been *measured*: per-subject fixed costs (compile,
-host GC, growing caches, tunnel congestion) would be invisible to a
+host GC, growing caches) would be invisible to a
 single-subject run.
 
 This tool runs stages 1-3 — otb4 import, the full EEG preprocessing
@@ -41,7 +41,7 @@ sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "tools"))
 
 import synth_study as S                                   # noqa: E402
-from bench_pipeline import (CompileMeter, synth_subject,  # noqa: E402
+from bench_pipeline import (CompileMeter,  # noqa: E402
                             FS, N_ICA, WINDOW_SEC, PSD_WINDOW_SEC,
                             N_SUBJECTS, log)
 
@@ -50,8 +50,8 @@ def run_subject(subject: int, plan: S.TrialPlan, work: Path,
                 meter: CompileMeter) -> dict:
     """Stages 1-3 for one subject, timed.  Mirrors the heavy-subject
     path of ``bench_pipeline.main`` (same production entry points)."""
+    import jax
     from mba_tpu.io.otb4 import write_otb4, read_otb4
-    from mba_tpu.utils.profiling import hard_sync
     from mba_tpu.utils.transfer import upload_counts, upload_quantized
     from mba_tpu.pipeline.preprocessing import BiosignalPreprocessor
     from mba_tpu.pipeline import signal_features as features
@@ -68,7 +68,7 @@ def run_subject(subject: int, plan: S.TrialPlan, work: Path,
     sub_feat.mkdir(parents=True, exist_ok=True)
 
     rec = {"subject": subject}
-    eeg, emg1, emg2 = synth_subject(plan, seed=100 + subject)
+    eeg, emg1, emg2 = S.synth_subject(plan, seed=100 + subject)
     S.write_subject_tree(exp_root, subject, plan, write_raw_serial=True)
     # stage-1 inputs (the otb4 archives the acquisition stage would
     # have written; authoring them is synthesis, reading is pipeline)
@@ -90,7 +90,7 @@ def run_subject(subject: int, plan: S.TrialPlan, work: Path,
     # ── stage 2: EEG cascade incl. ICA, then both EMG cascades ───────
     t0 = time.perf_counter()
     eeg_d, up_bytes, _ = upload_quantized(eeg, np.int16)
-    hard_sync(eeg_d)
+    jax.block_until_ready(eeg_d)
     rec["upload_sec"] = round(time.perf_counter() - t0, 2)
     rec["upload_bytes"] = int(up_bytes)
     del eeg
@@ -100,7 +100,7 @@ def run_subject(subject: int, plan: S.TrialPlan, work: Path,
         amplitude_rejection_threshold=3.0, device_resident=True)
     t0 = time.perf_counter()
     eeg_clean = prep.np_output_data
-    hard_sync(eeg_clean)
+    jax.block_until_ready(eeg_clean)
     rec["eeg_cascade_sec"] = round(time.perf_counter() - t0, 2)
     rec["ica_n_iter"] = int(prep.ica_result.n_iter_)
     prep.free_intermediate_stages()
@@ -120,7 +120,7 @@ def run_subject(subject: int, plan: S.TrialPlan, work: Path,
             amplitude_rejection_threshold=3.0,
             device_resident=True).np_output_data
         rec["upload_bytes"] += int(nb)
-    hard_sync(*emg_clean.values())
+    jax.block_until_ready(emg_clean)
     rec["emg_cascades_sec"] = round(time.perf_counter() - t0, 2)
     del emg1_counts, emg2_counts, r1, r2
 
@@ -211,7 +211,7 @@ def main():
     spread = float((steady.max() - steady.min()) / marginal_med)
     block = {
         "description": "stages 1-3 run for ALL 12 subjects at reduced "
-                       "recording length (VERDICT r4 #5) — measures the "
+                       "recording length — measures the "
                        "per-subject marginal cost the whole-pipeline "
                        "x-number extrapolates",
         "platform": platform,
@@ -245,7 +245,7 @@ def main():
         stats_wall = sum(st[k] for k in st
                          if k.startswith(("s4_", "s5_"))
                          and k.endswith("_sec"))
-        tpu_12 = (heavy_wall - heavy_compile) * N_SUBJECTS \
+        dev_12 = (heavy_wall - heavy_compile) * N_SUBJECTS \
             + heavy_compile + stats_wall
         den = bp["cpu_denominators"]
         cpu_12 = N_SUBJECTS * sum(den[k] for k in (
@@ -256,15 +256,15 @@ def main():
             + den["s5_cbpa_perm_cpu_sec_extrapolated"]
         block["full_scale_heavy_wall_sec_1subj"] = round(heavy_wall, 1)
         block["full_scale_heavy_compile_sec"] = round(heavy_compile, 1)
-        block["pipeline_12subj_tpu_sec_projected"] = round(tpu_12, 1)
-        block["pipeline_12subj_cpu_sec_projected"] = round(cpu_12, 1)
+        block["pipeline_12subj_device_sec_extrapolated"] = round(dev_12, 1)
+        block["pipeline_12subj_cpu_sec_extrapolated"] = round(cpu_12, 1)
         block["pipeline_speedup_12subj_measured_scaling"] = round(
-            cpu_12 / tpu_12, 1)
+            cpu_12 / dev_12, 1)
         bp["subject_scaling"] = block
         bp_path.write_text(json.dumps(bp, indent=2) + "\n")
         log(f"[scaling] marginal {marginal_med:.1f}s/subject "
             f"(spread {spread:.1%}), 12-subject pipeline "
-            f"{tpu_12:.0f}s vs CPU {cpu_12:.0f}s ⇒ "
+            f"{dev_12:.0f}s vs CPU {cpu_12:.0f}s ⇒ "
             f"×{block['pipeline_speedup_12subj_measured_scaling']} "
             f"→ merged into {bp_path.name}")
     print(json.dumps(block))

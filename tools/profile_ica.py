@@ -1,4 +1,4 @@
-"""Profile the extended-Infomax ICA fit at study scale (VERDICT r3 #7).
+"""Profile the extended-Infomax ICA fit at study scale.
 
 The reference's #1 preprocessing hot spot is the MNE infomax fit
 (reference preprocessing.py:654-682: 25 components over 64 ch × ~28 min
@@ -80,14 +80,12 @@ def recovery_score(ica, x, true_sources, n_probe_sec=120):
 def main():
     import jax
     from mba_tpu.ops.ica import InfomaxICA
-    from mba_tpu.utils.profiling import hard_sync
 
     platform = jax.devices()[0].platform
     n = int(MINUTES * 60 * FS)
     x, true_sources = planted_mixture(n)
     log(f"[setup] {platform}: {N_CH}ch × {MINUTES:.1f}min "
         f"({n/1e6:.2f}M samples), {N_COMP} planted sources")
-    hard_sync(jax.device_put(np.float32(1.0)))
 
     pinned = {}
     ppin = REPO / "BENCH_CPU_PINNED.json"

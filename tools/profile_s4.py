@@ -1,13 +1,12 @@
 """Profile stage 4 (Combined Statistics frame assembly) on a synthetic
 study tree.
 
-The five-stage pipeline benchmark showed stage 4 — a pure host-pandas
-path (reference ``statistics_data_preparation_workflow.py:179-632``) —
-at ~98 s for 12 subjects × 4 resolutions, the slowest stage after the
-r4 lean-artifact rework of stages 2-3.  This harness rebuilds just the
+Stage 4 of the five-stage pipeline benchmark is a pure host-pandas path
+(reference ``statistics_data_preparation_workflow.py:179-632``) that a
+faster device kernel does not move.  This harness rebuilds just the
 inputs stage 4 consumes (subject trees + lean band-aggregate artifacts
 + enriched serial frames) and cProfiles ``build_combined_statistics_
-frame`` so the hot callees are attributable without a TPU or a full
+frame`` so the hot callees are attributable without an accelerator or a full
 pipeline run:
 
     python tools/profile_s4.py [n_subjects] [n_seg]

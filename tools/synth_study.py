@@ -19,6 +19,9 @@ EEG↔EMG coupling gated to the derived task span; MUSIC trials couple at
 full gain, SILENCE trials at 0.4×, inter-trial gaps at 0 — so
 music-vs-silence CMC contrasts are true positives and the rest-window
 CMC is a true negative.
+
+The signal synthesis (``TrialPlan``, ``synth_subject``) needs only numpy;
+pandas is imported by the functions that write the artifact tree.
 """
 from __future__ import annotations
 
@@ -26,7 +29,6 @@ import json
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 from mba_tpu.utils import file_management as filemgmt
 
@@ -41,7 +43,10 @@ TASK_END_CUTOFF_SEC = 2.0
 TASK_FREQ_HZ = 0.1
 CATEGORIES = ("Classic", "Happy", "Sad")
 MUSIC_PATTERN = (1, 1, 1, 0, 1, 1, 1, 0, 1, 0)   # 7 music + 3 silence /10
-BASE_TIME = pd.Timestamp("2026-01-05 10:00:00")
+BASE_TIME = "2026-01-05 10:00:00"
+N_EEG = 64
+N_EMG = 64
+BETA_DRIVE = (16.0, 28.0)
 QTC_LATENCY_SEC = 0.75           # get_qtc_measurement_start_end default
 SILENCE_GAIN = 0.4
 LOG_ROW_HZ = 4.0
@@ -111,14 +116,67 @@ class TrialPlan:
                 for t in self.trials if sel(t)]
 
 
-def qtc0() -> pd.Timestamp:
+def synth_subject(plan: TrialPlan, seed=0):
+    """EEG with planted blink/ECG/line/muscle artifacts + beta drive
+    gated per-trial (music 1.0 / silence 0.4 / rest 0); two EMG
+    montages sharing the drive.  Returns float32 (n, 64) arrays
+    ``eeg, emg_flexor, emg_extensor``."""
+    rng = np.random.default_rng(seed)
+    n = plan.n_samples
+    t = np.arange(n) / FS
+
+    white = rng.standard_normal(n)
+    spec = np.fft.rfft(white)
+    f = np.fft.rfftfreq(n, 1 / FS)
+    spec[(f < BETA_DRIVE[0]) | (f > BETA_DRIVE[1])] = 0
+    drive = np.fft.irfft(spec, n=n).astype(np.float32)
+    drive /= drive.std() + 1e-12
+    drive *= plan.drive_gate(rng)
+
+    blink = np.zeros(n, np.float32)
+    for onset in rng.integers(0, n - int(FS), 150):
+        w = int(0.3 * FS)
+        blink[onset:onset + w] += np.hanning(w)[:len(blink[onset:onset + w])]
+    ecg = np.zeros(n, np.float32)
+    for beat in np.arange(0, n, int(0.85 * FS)):
+        w = int(0.05 * FS)
+        ecg[beat:beat + w] += np.hanning(w)[:len(ecg[beat:beat + w])] * 3
+    line = np.sin(2 * np.pi * 50.0 * t).astype(np.float32)
+
+    # mV-scale EEG (tens of µV = 1e-2 mV) — the reference pipeline's
+    # working unit (reference preprocessing_workflow.py:61-76)
+    eeg = rng.standard_normal((n, N_EEG), dtype=np.float32) * 1e-2
+    # SIGNED per-channel gains (dipole polarity): an all-positive gain
+    # profile is near-constant across the montage, so the average
+    # reference and the Laplacian (both subtract cross-channel means)
+    # would cancel most of the drive
+    gains = rng.uniform(0.3, 1.0, N_EEG) * rng.choice([-1.0, 1.0], N_EEG)
+    eeg += 5e-3 * drive[:, None] * gains[None, :].astype(np.float32)
+    front = np.zeros(N_EEG, np.float32)
+    front[:4] = [5e-2, 5e-2, 3e-2, 3e-2]
+    eeg += blink[:, None] * front[None, :]
+    eeg += ecg[:, None] * rng.uniform(1e-3, 4e-3, N_EEG)[None, :]
+    eeg += 2e-3 * line[:, None] * rng.uniform(0.5, 1.5, N_EEG)[None, :]
+
+    def emg_like(gain):
+        x = rng.standard_normal((n, N_EMG), dtype=np.float32) * 0.05
+        x += gain * drive[:, None] * rng.uniform(0.3, 1.0, N_EMG)[None, :]
+        x += 0.01 * line[:, None]
+        return x
+
+    return eeg, emg_like(0.03), emg_like(0.008)
+
+
+def qtc0():
     """Absolute timestamp of signal sample 0 (= qtc measurement start:
     Start Trigger is logged QTC_LATENCY_SEC earlier)."""
-    return BASE_TIME + pd.Timedelta(seconds=QTC_LATENCY_SEC)
+    import pandas as pd
+    return pd.Timestamp(BASE_TIME) + pd.Timedelta(seconds=QTC_LATENCY_SEC)
 
 
 def write_music_lookup(path: Path, plan: TrialPlan,
                        seed: int = 7) -> Path:
+    import pandas as pd
     rng = np.random.default_rng(seed)
     rows = []
     for sid in range(plan.n_songs):
@@ -138,9 +196,11 @@ def write_music_lookup(path: Path, plan: TrialPlan,
     return out
 
 
-def build_enriched_log(plan: TrialPlan, subject: int) -> pd.DataFrame:
+def build_enriched_log(plan: TrialPlan, subject: int):
     """Enriched-log rows in the exact schema integrate_subject saves
     (probed column inventory of the acquisition dummy experiment)."""
+    import pandas as pd
+    base_time = pd.Timestamp(BASE_TIME)
     rng = np.random.default_rng(1000 + subject)
     t0 = qtc0()
     columns = ["Time", "Music", "Event", "Questionnaire",
@@ -158,9 +218,9 @@ def build_enriched_log(plan: TrialPlan, subject: int) -> pd.DataFrame:
                      "Music": "No track playing currently.",
                      "Music Category": "No category"})
 
-    event(BASE_TIME - pd.Timedelta(seconds=5), "Onboarding complete")
-    event(BASE_TIME, "Start Trigger")
-    event(BASE_TIME + pd.Timedelta(seconds=0.2),
+    event(base_time - pd.Timedelta(seconds=5), "Onboarding complete")
+    event(base_time, "Start Trigger")
+    event(base_time + pd.Timedelta(seconds=0.2),
           "MVC calibrated: 15.00 kg")
     within_cat_count = {c: 0 for c in CATEGORIES}
     for tr in plan.trials:
@@ -221,9 +281,10 @@ def build_enriched_log(plan: TrialPlan, subject: int) -> pd.DataFrame:
     return df[columns].sort_values("Time").reset_index(drop=True)
 
 
-def synth_raw_serial(plan: TrialPlan, subject: int) -> pd.DataFrame:
+def synth_raw_serial(plan: TrialPlan, subject: int):
     """Raw serial trace (fsr volts, ecg, gsr) at SERIAL_HZ over the
     session — consumed by the REAL build_enriched_serial_frame path."""
+    import pandas as pd
     rng = np.random.default_rng(2000 + subject)
     n = int(plan.rec_sec * SERIAL_HZ)
     t = np.arange(n) / SERIAL_HZ
@@ -256,6 +317,7 @@ def synth_raw_serial(plan: TrialPlan, subject: int) -> pd.DataFrame:
 def write_subject_tree(exp_root: Path, subject: int, plan: TrialPlan,
                        write_raw_serial: bool = True) -> Path:
     """Logs + questionnaires + per-trial accuracy for one subject."""
+    import pandas as pd
     rng = np.random.default_rng(3000 + subject)
     sub = Path(exp_root) / f"subject_{subject:02}"
     (sub / "experiment_logs").mkdir(parents=True, exist_ok=True)
